@@ -1,13 +1,15 @@
 # fabstir-vectordb-tpu REST server image.
-# Deployment parity with the reference's Dockerfile/Dockerfile.production;
-# the TPU runtime (libtpu) is expected from the base image on TPU VMs.
+# Deployment parity with the reference's Dockerfile/Dockerfile.production.
+# JAX comes as its CUDA 12 wheel (the CUDA libraries are pip packages);
+# run with the NVIDIA container toolkit (`docker run --gpus 1 ...`). Pass
+# --build-arg JAX_SPEC="jax[cpu]" for a CPU-only image.
 
 # --- wasm build stage: the full embedded runtime for browsers ------------
 # Compiles fvdb_embedded.{js,wasm} from the same C++ sources as the native
 # runtime (bindings/wasm/build.sh). The hand-assembled fvdb_kernels.wasm is
 # already committed in-tree (generated + interpreter-validated in CI, see
 # bindings/wasm/gen_kernels.py); this stage adds the emscripten artifact
-# that the TPU build image cannot produce (no emcc there).
+# that the Python build image cannot produce (no emcc there).
 FROM emscripten/emsdk:3.1.61 AS wasm
 WORKDIR /src
 COPY fabstir_vectordb_tpu/native ./fabstir_vectordb_tpu/native
@@ -19,11 +21,13 @@ FROM python:3.12-slim
 RUN apt-get update && apt-get install -y --no-install-recommends g++ \
     && rm -rf /var/lib/apt/lists/*
 
+ARG JAX_SPEC="jax[cuda12]"
+
 WORKDIR /app
 COPY pyproject.toml README.md ./
 COPY fabstir_vectordb_tpu ./fabstir_vectordb_tpu
 
-RUN pip install --no-cache-dir "jax[cpu]" numpy aiohttp requests \
+RUN pip install --no-cache-dir "${JAX_SPEC}" numpy aiohttp requests \
         zstandard cryptography \
     && pip install --no-cache-dir -e .
 

@@ -2,7 +2,7 @@
  * Type declarations for the fabstir-vectordb-tpu Node.js SDK
  * (./index.mjs). Contract parity with the reference SDK's generated
  * declarations (reference: bindings/node/index.d.ts:6-242), adapted to
- * this SDK's transport: the engine owns a TPU device and runs in the
+ * this SDK's transport: the engine owns the GPU and runs in the
  * serving process, so the session drives it over /api/v1 REST instead of
  * an in-process napi addon.
  */

@@ -9,8 +9,8 @@
  * encryptAtRest, debug) and error codes.
  *
  * Architecture note (deliberately different from the reference): the
- * reference links its Rust engine into the Node process via napi. The TPU
- * engine cannot live inside Node — it owns a TPU device — so the session
+ * reference links its Rust engine into the Node process via napi. This
+ * engine cannot live inside Node — it owns the GPU — so the session
  * runs in the serving process (fabstir_vectordb_tpu.api.server) and this
  * SDK drives it over the /api/v1 REST surface, including the session-level
  * routes (save/load/schema/vacuum/delete-by-metadata/update-metadata).

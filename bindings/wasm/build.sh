@@ -8,7 +8,7 @@
 # exposes the reference WASM crate's API (InMemoryIndex, Vector/VectorBatch,
 # video helpers) over the exported C ABI.
 #
-# Requires emscripten (emcc) on PATH; the build image used for TPU rounds
+# Requires emscripten (emcc) on PATH; the repository's Python build image
 # does not ship it, so this artifact is produced by downstream packaging
 # (see the `wasm` stage in /Dockerfile). A toolchain-free companion,
 # fvdb_kernels.wasm (hand-assembled hot kernels, generated by

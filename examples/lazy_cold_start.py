@@ -8,11 +8,6 @@ the FIRST search is answered immediately by byte-range-reading only the
 row spans its probe plan touches (the HNSW member span + the probed IVF
 cluster spans — the save groups rows for exactly this locality).
 
-Measured at 1M x 384 on the reference hardware: lazy serve-ready 2.65 s
-(sidecars 1.9 + first search 0.80) vs ~80 s for full materialization;
-at the reference's 100K scale, 1.04 s end-to-end vs its 0.685 s load +
-~1 s cold first search (docs/PERFORMANCE.md "Lazy cold start").
-
 Run from the repo root:  JAX_PLATFORMS=cpu python examples/lazy_cold_start.py
 """
 import sys

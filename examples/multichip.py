@@ -3,7 +3,7 @@
 
 Beyond reference parity (the reference is a single-process system): this
 example runs the full multi-chip lifecycle on a virtual 8-device CPU
-mesh — the same code drives real TPU pods via `jax.sharding.Mesh`:
+mesh — the same code drives real multi-GPU hosts via `jax.sharding.Mesh`:
 
   1. mesh-parallel k-means training (data-parallel Lloyd, psum'd updates);
   2. mesh-parallel HNSW build (link-candidate scan row-sharded; the

@@ -1,4 +1,4 @@
-"""fabstir-vectordb-tpu: a TPU-native vector database.
+"""fabstir-vectordb-tpu: a vector database whose device work runs in JAX.
 
 Top-level convenience exports; subpackages hold the full surfaces:
   index/      engines (flat, IVF, HNSW, hybrid, fused, tiered) + VectorStore

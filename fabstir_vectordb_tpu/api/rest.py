@@ -147,8 +147,7 @@ class SearchCoalescer:
     MAX_BATCH = 512
     # device programs in flight before the oldest is finalized: JAX dispatch
     # is async, so keeping a few batches enqueued overlaps the host<->device
-    # round-trip (which, not device time, bounds serial QPS on tunneled
-    # devices) without unbounded memory growth
+    # round-trip with device work without unbounded memory growth
     PIPELINE_DEPTH = 4
 
     def __init__(self, state: "AppState"):

@@ -43,7 +43,7 @@ async def serve(config: ApiConfig | None = None) -> None:
 def main() -> None:
     from ..utils.compile_cache import enable_persistent_cache
 
-    enable_persistent_cache()  # warm restarts skip remote-compile costs
+    enable_persistent_cache()  # warm restarts load compiled programs
     asyncio.run(serve())
 
 

@@ -1,6 +1,6 @@
 """CBOR (RFC 8949) encoder/decoder.
 
-TPU-native equivalent of the reference's CBOR codec (reference: src/cbor/
+Python equivalent of the reference's CBOR codec (reference: src/cbor/
 encoder.rs:11-61, decoder.rs:9-46, serde_cbor usage throughout persistence).
 Persistence payloads (chunks, metadata, manifests' binary parts) are CBOR so
 the on-disk format stays self-describing and language-neutral.

@@ -3,7 +3,7 @@
 Format parity with the reference's chunk/manifest layer
 (reference: src/core/chunk.rs):
   - ``VectorChunk``: {chunk_id, start_idx, end_idx, vectors} (:38-97). The
-    reference stores a CBOR HashMap<VectorId, Vec<f32>>; our TPU-native chunk
+    reference stores a CBOR HashMap<VectorId, Vec<f32>>; our array-native chunk
     keeps ids and a dense row-major f32 array (ids[i] <-> data[i]) so a chunk
     uploads to HBM as one contiguous shard — same information, array layout.
   - ``ChunkMetadata``: {chunk_id, cid, vector_count, byte_size, id range}

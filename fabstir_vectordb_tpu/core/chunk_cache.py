@@ -2,7 +2,7 @@
 
 Parity with the reference's ChunkCache (reference: src/core/chunk_cache.rs:
 48-172, CacheMetrics :12-45): capacity in number of chunks or bytes, LRU
-eviction, shared across clones. In the TPU build this is the host-DRAM tier
+eviction, shared across clones. Here this is the host-DRAM tier
 of the chunk hierarchy (object store -> host cache -> HBM arrays).
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """ObjectStore protocol + resilience decorators + test fakes.
 
-TPU-native equivalent of the reference's ``S5Storage`` trait stack
+Python equivalent of the reference's ``S5Storage`` trait stack
 (reference: src/core/storage.rs):
   - the narrow {get, put, delete, list} interface (:25-30);
   - ``CachedObjectStore``: LRU + TTL + memory cap with hit/miss stats (:39-277);

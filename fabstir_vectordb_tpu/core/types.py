@@ -11,7 +11,7 @@ Feature parity with the reference's core types (reference: src/core/types.rs):
   - ``SearchResult`` ordered by distance, with deduplication keeping the best
     score per id (src/core/types.rs:206-224).
 
-In the TPU engine itself, vectors are rows of dense arrays and ids are row
+In the device engine itself, vectors are rows of dense arrays and ids are row
 indices; these types live at the API boundary only.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Embedded (in-process, host-only) index surface.
 
-The TPU-native framework's equivalent of the reference's standalone WASM
+This framework's equivalent of the reference's standalone WASM
 bindings crate (reference: bindings/wasm/src/lib.rs:12-15) — a small
 brute-force index plus vector math and video-domain helpers that run
 anywhere without a device: browser-analog deployments, edge processes,

@@ -16,7 +16,7 @@ rows). The candidate set is a superset of what the pruned device path scans
 (ALL HNSW members brute-forced vs. a beam; identical IVF probe lists), so
 cold results are at least as accurate as warm pruned results.
 
-This is the TPU-era shape of the reference's lazy chunk-on-demand design
+This is this rebuild's shape of the reference's lazy chunk-on-demand design
 (reference: src/storage/chunk_loader.rs — cache/dedup/retry fetches;
 src/hybrid/persistence.rs:497-570 — lazy load returning before chunk data;
 README.md:24-26 — searchable immediately, first search pays chunk fetches):

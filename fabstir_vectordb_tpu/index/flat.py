@@ -8,7 +8,7 @@ Three roles (SURVEY §7 step 1):
     search (bindings/wasm/src/index.rs:122-161);
   - the small-dataset fast path.
 
-The whole search is one [B, N] MXU matmul + lax.top_k; soft-delete and
+The whole search is one [B, N] matmul + lax.top_k; soft-delete and
 metadata-filter bitmasks are fused into selection.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Dense row-oriented vector storage shared by all index engines.
 
-TPU-first replacement for the reference's per-node HashMaps
+Array replacement for the reference's per-node HashMaps
 (reference: src/hnsw/core.rs:49-116 nodes hold full vectors;
 src/ivf/core.rs:112-152 InvertedList HashMap<VectorId, Vec<f32>>):
 vectors live in ONE dense [capacity, dim] f32 array; ids are row indices.
@@ -379,8 +379,8 @@ class VectorStore:
         """Device-resident (x, x_sq); re-uploaded only when host data changed.
 
         ``dtype="bfloat16"`` keeps the resident vectors in bf16 — half the
-        HBM per row (double the single-chip capacity) with distances still
-        accumulated in f32 on the MXU; x_sq stays f32 from the host copy.
+        device memory per row (double the single-device capacity) with distances still
+        accumulated in f32; x_sq stays f32 from the host copy.
         """
         with self._lock:
             m = self._mirror

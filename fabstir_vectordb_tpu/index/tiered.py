@@ -1,6 +1,6 @@
 """Host-DRAM -> HBM tiered exact search (double-buffered tile streaming).
 
-The TPU answer to the reference's beyond-RAM scaling stack (reference:
+This rebuild's answer to the reference's beyond-RAM scaling stack (reference:
 chunked storage + LRU ChunkCache + lazy ChunkLoader, SURVEY §2.10
 "capacity scaling" row): when the corpus exceeds the single-chip HBM
 budget, vectors stay in host DRAM (or memory-mapped chunk files) and

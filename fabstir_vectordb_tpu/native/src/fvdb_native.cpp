@@ -1,4 +1,4 @@
-// fvdb_native: host-side runtime primitives for the TPU vector DB.
+// fvdb_native: host-side runtime primitives for the vector DB.
 //
 // Native (C++) equivalents of the reference's native runtime components
 // (reference: the Rust crate's storage/cache layer - src/storage/*,

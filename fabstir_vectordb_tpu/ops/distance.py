@@ -1,9 +1,9 @@
-"""Batched distance kernels as MXU matmuls.
+"""Batched distance kernels as matmuls.
 
-TPU-native replacement for the reference's scalar/AVX2 distance loops
+Device replacement for the reference's scalar/AVX2 distance loops
 (reference: src/core/vector_ops.rs:35-136). Instead of per-pair SIMD loops,
 all distances are computed as one batched matmul ``Q @ X.T`` plus norm terms,
-which XLA tiles onto the 128x128 systolic array.
+which XLA hands to the matrix units.
 
 Distance conventions (matching the reference engines):
   - "euclidean": HNSW/IVF ordering metric (src/hnsw/core.rs:691-697). We keep
@@ -28,11 +28,11 @@ def squared_norms(x: jax.Array) -> jax.Array:
 
 
 def _matmul(q: jax.Array, x: jax.Array, compute_dtype) -> jax.Array:
-    """q [B, D] @ x.T [D, N] -> [B, N], f32 accumulation on the MXU.
+    """q [B, D] @ x.T [D, N] -> [B, N], f32 accumulation.
 
-    For f32 inputs we request HIGHEST precision (full f32 MXU passes) so the
-    norm-expansion distance formulation stays accurate; bf16 compute_dtype is
-    the fast path and uses the default single-pass MXU mode.
+    For f32 inputs we request HIGHEST precision (full f32, never TF32) so
+    the norm-expansion distance formulation stays accurate and ranks like
+    the CPU; bf16 compute_dtype is the fast path with f32 accumulation.
     """
     precision = (
         jax.lax.Precision.HIGHEST if compute_dtype == jnp.float32 else None

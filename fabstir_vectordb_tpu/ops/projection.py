@@ -1,9 +1,9 @@
 """PCA projection for reduced-rank serving (compressed exact scan).
 
-TPU-first rationale (TPU-KNN, arXiv:2206.14286; AQR-HNSW, arXiv:2602.21600;
-pHNSW, arXiv:2602.19242): on hardware that streams matmuls at HBM bandwidth,
-a low-rank exact scan + exact rerank beats pointer-chasing graph traversal —
-the first pass is one [B, r] x [r, N] MXU matmul over a 4x-compressed
+Rationale (TPU-KNN, arXiv:2206.14286; AQR-HNSW, arXiv:2602.21600;
+pHNSW, arXiv:2602.19242): on hardware that streams matmuls at memory
+bandwidth, a low-rank exact scan + exact rerank beats pointer-chasing graph
+traversal — the first pass is one [B, r] x [r, N] matmul over a 4x-compressed
 mirror, and the rerank touches only oversample*k rows. L2 distances are
 translation-invariant, so mean-centering before projection loses nothing;
 the top-r eigenbasis is the best r-dim linear map in expected squared

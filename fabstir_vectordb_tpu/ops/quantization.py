@@ -1,10 +1,10 @@
 """Vector quantization: u8 scalar quantization + Product Quantization (PQ).
 
-TPU-native replacement for the reference's quantization support
+Device replacement for the reference's quantization support
 (reference: src/core/vector_ops.rs:349-578): u8 scalar quantization with
 per-vector (min, scale) and a ProductQuantizer that k-means-trains a codebook
 per subspace, encodes to code indices, and supports asymmetric distance
-computation (ADC) via lookup tables — the TPU-friendly way to scan quantized
+computation (ADC) via lookup tables — the matmul-friendly way to scan quantized
 inverted lists.
 """
 from __future__ import annotations
@@ -131,7 +131,7 @@ def pq_adc_table(codebook_centroids: jax.Array, q: jax.Array) -> jax.Array:
 def pq_adc_distances(table: jax.Array, codes: jax.Array) -> jax.Array:
     """Sum table lookups: table [B, M, K], codes [N, M] -> sq dists [B, N]."""
     codes_i = codes.astype(jnp.int32)  # [N, M]
-    # one_hot matmul keeps this on the MXU instead of gather-bound.
+    # one_hot matmul keeps this a matmul instead of gather-bound.
     k = table.shape[-1]
     onehot = jax.nn.one_hot(codes_i, k, dtype=table.dtype)  # [N, M, K]
     return jnp.einsum("bmk,nmk->bn", table, onehot, precision=_HI)

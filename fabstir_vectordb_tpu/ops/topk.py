@@ -1,6 +1,6 @@
 """Masked top-k selection and streaming top-k merges.
 
-TPU-native replacement for the reference's heap/sort top-k and StreamingTopK
+Device replacement for the reference's heap/sort top-k and StreamingTopK
 (reference: src/core/vector_ops.rs:12-22,180-263). Smaller distance = better
 everywhere; invalid entries are masked to +inf and surface with index -1.
 
@@ -24,36 +24,18 @@ def masked_topk(dists: jax.Array, mask: jax.Array, k: int):
     dists: [B, N] f32; mask: [N] or [B, N] bool.
     Returns (vals [B, k] f32 with +inf padding, idx [B, k] int32 with -1 padding).
 
-    Plain ``lax.top_k`` deliberately: XLA's TPU TopK lowering is already
-    a partial selection, not a full sort. A two-level tiled reduction
-    (per-2048-tile top-k lanes + candidate merge) was measured on a v5e
-    at 1M x 384: tied at B=1 (7.2 vs 7.0 ms) and 4x SLOWER at B=128
-    (61.8 vs 15.5 ms incl. the distance matmul) — the [B, T, tile]
-    relayout costs more than the selection saves, so it was removed.
+    The one selection of the package: every candidate pool (HNSW link
+    candidates, turbo and reduced-rank stage-1 pools, sharded pools) uses
+    it too. ``lax.approx_min_k`` was the pool selection before; on the GPU
+    it lowers to the same sort as ``lax.top_k``, and on an H100 the two
+    timed alike at every caller's shape (scripts/bench_selection.py), so
+    only the exact one is kept.
     """
     if mask.ndim == 1:
         mask = mask[None, :]
     masked = jnp.where(mask, dists, INF)
     neg_vals, idx = jax.lax.top_k(-masked, k)
     vals = -neg_vals
-    valid = jnp.isfinite(vals)
-    return jnp.where(valid, vals, INF), jnp.where(valid, idx, -1).astype(jnp.int32)
-
-
-@partial(jax.jit, static_argnames=("k", "recall_target"))
-def masked_approx_topk(dists: jax.Array, mask: jax.Array, k: int,
-                       recall_target: float = 0.95):
-    """Approximate top-k smallest via the TPU-native ``lax.approx_min_k``.
-
-    Same conventions as masked_topk. exact top_k lowers to a full sort on
-    TPU (O(N log N) and slow for large k); approx_min_k is the hardware-
-    friendly O(N) selection — use it where slight tail imprecision is fine
-    (e.g. HNSW linking candidates, oversampled prefilter pools).
-    """
-    if mask.ndim == 1:
-        mask = mask[None, :]
-    masked = jnp.where(mask, dists, INF)
-    vals, idx = jax.lax.approx_min_k(masked, k, recall_target=recall_target)
     valid = jnp.isfinite(vals)
     return jnp.where(valid, vals, INF), jnp.where(valid, idx, -1).astype(jnp.int32)
 

@@ -5,8 +5,9 @@ device's candidate program at scale; serving already shards across chips
 (parallel/sharded.py) but the build path did not. Here the exact-candidate
 scan — the device-dominant phase of HNSW linking — runs row-sharded over a
 ``jax.sharding.Mesh``: each chip scans only its shard of the corpus for
-each 1024-row link batch, partial top-ef pools merge over ICI
-(all_gather + fused top-k, the same collective shape as sharded serving),
+each 1024-row link batch, partial top-ef pools merge over the device
+interconnect (all_gather + fused top-k, the same collective shape as
+sharded serving),
 and the host links from the merged pool with the SAME linker as the
 single-chip path. IVF ingest parallelizes the same way: training is
 ``sharded_kmeans_train`` (data-parallel Lloyd with psum'd centroid
@@ -17,10 +18,8 @@ candidate pool — and therefore the built graph — is INVARIANT to the mesh
 size: build on 8 chips, 2 chips, or 1 chip and the adjacency arrays are
 bit-identical (tested), provided ef <= rows/device so no shard's true
 candidates are truncated (any real corpus satisfies this by orders of
-magnitude). ``select="approx"`` swaps each shard's top-ef for the
-TPU-native ``approx_min_k`` pool + exact refine — the same trade the
-single-chip flat-link kernel makes (index/hnsw.py::_flat_candidates_kernel)
-— for corpora where the per-shard sort matters.
+magnitude). ``select="approx"`` swaps each shard's top-ef for a wider
+pool + exact refine (the sharded twin of turbo flat selection).
 
 Reference analog: the reference has no distributed build at all (its
 parallelism is tokio tasks in one process, SURVEY §2.10); this is the

@@ -2,8 +2,8 @@
 
 The reference has no collective layer (its "distributed backend" is HTTP to
 an S5 portal; SURVEY §2.10): multi-chip scaling is new capability in this
-rebuild. Shardings here ride ICI via XLA collectives (psum / all_gather);
-DCN/HTTP remains the cold-storage path only.
+rebuild. Shardings here ride the device interconnect via XLA collectives
+(psum / all_gather); HTTP remains the cold-storage path only.
 """
 from __future__ import annotations
 
@@ -28,11 +28,13 @@ def cpu_mesh(n_devices: int, axis: str = DATA_AXIS) -> Mesh:
 
 
 def make_mesh(n_devices: int | None = None, axis: str = DATA_AXIS) -> Mesh:
-    """Mesh over the default backend's devices; falls back to virtual CPU
-    devices when the default backend has too few chips."""
+    """Mesh over the default backend's devices. Raises when the backend has
+    fewer than ``n_devices`` (tests build virtual CPU meshes with
+    ``cpu_mesh`` explicitly)."""
     devs = jax.devices()
     if n_devices is None:
         n_devices = len(devs)
-    if len(devs) >= n_devices:
-        return Mesh(np.array(devs[:n_devices]), (axis,))
-    return cpu_mesh(n_devices, axis)
+    if len(devs) < n_devices:
+        raise ValueError(
+            f"need {n_devices} {devs[0].platform} devices, have {len(devs)}")
+    return Mesh(np.array(devs[:n_devices]), (axis,))

@@ -3,7 +3,8 @@
 New capability vs the reference (its only "distributed backend" is HTTP to
 an S5 portal, SURVEY §2.10): inverted lists and the flat corpus shard across
 chips; queries can shard across a second mesh axis (data parallelism);
-partial top-k results merge with an all_gather over ICI and a final fused
+partial top-k results merge with an all_gather over the device
+interconnect and a final fused
 top-k — the collective top-k merge design from SURVEY §7 step 8.
 
 Everything is shard_map'd SPMD so XLA inserts the collectives:
@@ -47,18 +48,16 @@ def sharded_flat_search(mesh: Mesh, axis: str = "data",
     axis size (pad with mask=False rows).
 
     ``select="approx"`` is the multi-chip twin of the single-chip turbo
-    flat mode (FVDB_FLAT_SELECT, index/fused.py::flat_search_approx_kernel):
-    each shard picks an ``oversample``-wide ``approx_min_k`` pool from its
-    local rows and re-scores the pool exactly in f32 BEFORE the ICI merge,
-    so only [n_dev, B, k] candidates cross the interconnect either way —
-    the collective cost is identical, the per-shard selection drops from
-    the batched top_k bottleneck to O(N_local).
+    flat mode (FVDB_FLAT_SELECT, index/fused.py::flat_search_rerank_kernel):
+    each shard picks an ``oversample``-wide pool from its local rows and
+    re-scores the pool exactly in f32 BEFORE the merge, so only
+    [n_dev, B, k] candidates cross the interconnect either way.
 
     ``query_axis`` (2D mesh) additionally shards the QUERY batch: rows
     shard over ``axis``, queries over ``query_axis`` (B divisible by its
     size), results come back query-sharded. Capacity scaling and serving
     data-parallelism compose on one mesh — the all_gather still runs only
-    over the row axis, so ICI traffic per query is unchanged.
+    over the row axis, so interconnect traffic per query is unchanged.
     """
     if select not in ("exact", "approx"):
         raise ValueError(f"select must be exact|approx, got {select}")
@@ -69,10 +68,8 @@ def sharded_flat_search(mesh: Mesh, axis: str = "data",
         idx = jax.lax.axis_index(axis)
         d = pairwise_distance(q, x, x_sq=x_sq)
         if select == "approx" and n_local > k:
-            from ..ops.topk import masked_approx_topk
-
             ov = min(max(oversample, 4 * k), n_local)
-            _, cand = masked_approx_topk(d, mask, ov)
+            _, cand = masked_topk(d, mask, ov)
             # exact f32 refine of the local pool (difference form — same
             # squared-distance convention as the scan above)
             xg = x[jnp.maximum(cand, 0)].astype(jnp.float32)
@@ -119,7 +116,7 @@ def sharded_projected_search(mesh: Mesh, axis: str = "data"):
     p [D, rank], q [B, D] replicated, ov_k) -> (approx sq-dists, rows)
     replicated — the top ov_k stage-1 candidates. Queries project on
     device; each chip scans only its row shard of the compressed mirror;
-    partial top-k merge over ICI. The caller reranks the candidates
+    partial top-k merge across devices. The caller reranks the candidates
     against the full-precision corpus (host-resident at these scales),
     exactly like the single-chip regime.
     """
@@ -127,7 +124,9 @@ def sharded_projected_search(mesh: Mesh, axis: str = "data"):
 
     @partial(jax.jit, static_argnames=("ov_k",))
     def run(xp, xp_sq, mask, mu, p, q, ov_k: int):
-        qp = ((q - mu) @ p).astype(xp.dtype)
+        # default precision: the caller reranks the pool exactly in f32
+        qp = jnp.matmul(q - mu, p, precision=jax.lax.Precision.DEFAULT
+                        ).astype(xp.dtype)
         return flat(xp, xp_sq, mask, qp, ov_k)
 
     return run
@@ -230,7 +229,8 @@ def sharded_ivf_search(mesh: Mesh, axis: str = "data",
             safe_c = jnp.clip(local, 0, c_local - 1)
             xs = list_vecs[safe_c]  # [B, L_pad, D]
             dots = jnp.einsum("bd,bld->bl", q, xs,
-                              preferred_element_type=jnp.float32)
+                              preferred_element_type=jnp.float32,
+                              precision=jax.lax.Precision.HIGHEST)
             xs_sq = jnp.sum(xs * xs, axis=-1)
             dist = jnp.maximum(q_sq[:, None] - 2.0 * dots + xs_sq, 0.0)
             valid = list_valid[safe_c] & mine[:, None]
@@ -296,6 +296,7 @@ def sharded_lloyd_step(mesh: Mesh, axis: str = "data"):
             jax.lax.dot_general(
                 onehot, x.astype(jnp.float32),
                 dimension_numbers=(((0,), (0,)), ((), ())),
+                precision=jax.lax.Precision.HIGHEST,
                 preferred_element_type=jnp.float32,
             ),
             axis,

@@ -1,6 +1,6 @@
 """Persistence: chunked manifest-v3 hybrid format + per-engine persisters.
 
-TPU-native rebuild of the reference persistence tier
+Rebuild of the reference persistence tier
 (reference: src/hybrid/persistence.rs, src/hnsw/persistence.rs,
 src/ivf/persistence.rs). Key mapping:
   - ``HybridPersister.save_index_chunked`` (hybrid/persistence.rs:188-277):

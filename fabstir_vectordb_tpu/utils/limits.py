@@ -1,12 +1,13 @@
 """Shared size thresholds.
 
 FLAT_THRESHOLD: max (padded) corpus rows for which one exact masked
-distance matmul is the fastest query/candidate plan on a single chip.
-Measured on a v5e at 384-dim: the flat matmul runs in sub-ms to few-ms
-device time up to millions of rows, while gather-based graph/IVF traversal
-costs ~4-5 ms/query — matmuls beat gathers until HBM capacity, not compute,
-becomes the limit (~6 GB of vectors at the default). Both the fused
-serving path and HNSW construction switch plans on this value.
+distance matmul is the query/candidate plan on one device. The flat scan
+streams the corpus once per batch, while graph/IVF traversal is a chain of
+dependent gathers, so the flat plan is kept while the corpus fits device
+memory. The value (4,194,304 rows, 6.4 GB at 384-dim f32) has not been
+measured on the GPU yet; where the crossover lies there is an open
+question. Both the fused serving path and HNSW construction switch plans
+on this value.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ def pca_serve() -> bool:
     """Reduced-rank serving beyond the flat threshold (FVDB_PCA_SERVE).
 
     On: corpora past bf16-mirror residency serve via a PCA-compressed exact
-    scan (one MXU matmul over a [N, rank] bf16 mirror) + exact host rerank
+    scan (one matmul over a [N, rank] bf16 mirror) + exact host rerank
     of oversample*k rows — matmul-bound instead of gather-bound. Off ("0"):
     the HNSW-beam + IVF-nprobe pruned path serves instead.
     """
@@ -80,9 +81,9 @@ def pca_rerank_mode() -> str:
     """Reduced-rank stage-2 rerank placement (FVDB_PCA_RERANK).
 
     "auto" (default): rerank on DEVICE against a full-dim bf16 mirror when
-    it fits the HBM budget next to the projected mirror (all-MXU serving,
-    no 1-core-host BLAS on the hot path); otherwise on the host from the
-    canonical f32 rows. "device" / "host" force the choice.
+    it fits the device memory budget next to the projected mirror (no host
+    BLAS on the hot path); otherwise on the host from the canonical f32
+    rows. "device" / "host" force the choice.
     """
     v = os.environ.get("FVDB_PCA_RERANK", "auto")
     if v not in ("auto", "device", "host"):
@@ -146,18 +147,15 @@ def flat_select() -> str:
     """Flat-regime selection strategy ("exact" | "approx", FVDB_FLAT_SELECT).
 
     exact (default): lax.top_k over the masked distance row — recall is
-    exactly 1.0; the partial-selection TopK lowering dominates batched
-    device time (measured v5e, 1M x 384: 11.4 ms of a B=128 dispatch,
-    43.4 ms at B=512).
+    exactly 1.0.
 
-    approx: the TPU-KNN two-stage (arXiv:2206.14286) — ``approx_min_k``
-    selects a wide candidate pool (FVDB_FLAT_OVERSAMPLE) in O(N), then an
-    exact f32 re-score of the pool picks the final k in one fused device
-    program. Measured at B=512 over 1M x 384 on a v5e: 3.1x the exact
-    throughput at recall 0.9984 (f32 mirror, ov=128); with bf16 mirrors
-    9.4x at 0.992 (the pool selection itself is bf16-quantized — raise
-    the oversample to trade QPS for the tail). Opt-in because the flat
-    regime advertises exact results.
+    approx: a two-stage plan (after TPU-KNN, arXiv:2206.14286) — a wide
+    candidate pool (FVDB_FLAT_OVERSAMPLE) is selected with ``masked_topk``,
+    then an exact f32 re-score of the pool picks the final k, both in
+    ``flat_search_rerank_kernel``. On the GPU the pool selection is itself
+    exact, so this trades a wider selection for the re-score; whether it
+    buys anything there is not measured (ROADMAP Queue 3 #4).
+    Opt-in because the flat regime advertises exact results.
     """
     v = os.environ.get("FVDB_FLAT_SELECT", "exact")
     if v not in ("exact", "approx"):
@@ -169,8 +167,7 @@ def flat_oversample() -> int:
     """approx flat-selection pool width (FVDB_FLAT_OVERSAMPLE, default 128).
 
     Clamped to at least 4k at dispatch; the exact f32 refine makes pool
-    width the only recall lever (measured at 1M: 128 -> 0.9984,
-    256 -> 0.9988, 512 -> 0.9991 with f32 mirrors).
+    width the only recall lever.
     """
     return max(16, int(os.environ.get("FVDB_FLAT_OVERSAMPLE", 128)))
 
@@ -183,13 +180,39 @@ def pca_target() -> float:
     return min(1.0, max(0.5, float(os.environ.get("FVDB_PCA_TARGET", 0.99))))
 
 
+# share of the serving device's memory the regime choices may plan to fill
+# (the rest is headroom for transients and the allocator)
+HBM_BUDGET_FRACTION = 0.75
+
+
 def hbm_budget_bytes() -> int:
-    """Serving HBM budget (FVDB_HBM_BUDGET_GB, default 12 GiB usable of a
-    16 GiB chip). Gates regime choices that trade HBM for speed — e.g.
-    keeping a full-dim bf16 mirror next to the reduced-rank mirror so
-    rerank runs on the MXU instead of the (1-core) host."""
-    gb = float(os.environ.get("FVDB_HBM_BUDGET_GB", 12))
-    return int(gb * (1 << 30))
+    """Serving device-memory budget in bytes. Gates regime choices that
+    trade device memory for speed — e.g. keeping a full-dim bf16 mirror
+    next to the reduced-rank mirror so rerank runs on the device instead
+    of the host.
+
+    ``FVDB_HBM_BUDGET_GB`` overrides. Otherwise HBM_BUDGET_FRACTION of
+    what the serving device reports it can allocate
+    (``memory_stats()["bytes_limit"]``); on the CPU backend, which reports
+    no memory stats, of the host's physical memory. Any other device
+    without memory stats is an error, not a guess.
+    """
+    gb = os.environ.get("FVDB_HBM_BUDGET_GB")
+    if gb is not None:
+        return int(float(gb) * (1 << 30))
+    import jax
+
+    dev = jax.devices()[0]
+    stats = dev.memory_stats()
+    if stats and "bytes_limit" in stats:
+        total = int(stats["bytes_limit"])
+    elif dev.platform == "cpu":
+        total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    else:
+        raise RuntimeError(
+            f"{dev.device_kind} reports no memory limit; set "
+            "FVDB_HBM_BUDGET_GB")
+    return int(total * HBM_BUDGET_FRACTION)
 
 
 def stage1_transient_bytes() -> int:

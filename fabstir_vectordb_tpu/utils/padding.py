@@ -1,15 +1,14 @@
 """Shape/padding helpers.
 
-TPU-first design rule: everything under jit has static shapes. Host code pads
-row counts up to capacity buckets (powers of two times a lane-aligned base) so
-growth does not trigger recompilation on every insert.
+Design rule: everything under jit has static shapes. Host code pads row
+counts up to power-of-two capacity buckets so growth does not trigger
+recompilation on every insert.
 """
 from __future__ import annotations
 
 import numpy as np
 
-LANE = 128  # TPU lane width; last-dim alignment target.
-SUBLANE = 8  # f32 sublane count.
+MIN_BUCKET_ROWS = 8  # smallest capacity bucket grow_capacity hands out
 
 
 def round_up(x: int, m: int) -> int:
@@ -25,7 +24,7 @@ def grow_capacity(needed: int, minimum: int = 1024) -> int:
     Power-of-two buckets bound the number of distinct jit specializations to
     O(log N) over the life of an index.
     """
-    cap = max(int(minimum), SUBLANE)
+    cap = max(int(minimum), MIN_BUCKET_ROWS)
     while cap < needed:
         cap *= 2
     return cap

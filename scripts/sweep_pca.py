@@ -3,8 +3,7 @@
 Builds one corpus, then for each (FVDB_PCA_RANK, FVDB_PCA_OVERSAMPLE)
 point rebuilds the projection mirror and measures recall@10, p50 and
 batched QPS through the full serving path (threshold forced to 0 so the
-reduced-rank regime always serves). The markdown table this emits is the
-tuning guidance for docs/PERFORMANCE.md.
+reduced-rank regime always serves). It emits one markdown table.
 
 Usage: python scripts/sweep_pca.py --n 1000000 [--ranks 96 192] [--ovs 8 32]
 """
@@ -92,7 +91,10 @@ def main() -> None:
     os.environ["FVDB_FLAT_THRESHOLD"] = "0"
     limits.FLAT_THRESHOLD = 0
     cfg = SearchConfig(auto_migrate=False)
-    print(f"## reduced-rank sweep, {n//1_000_000}M x {dim} (bf16, v5e)\n")
+    import jax
+
+    print(f"## reduced-rank sweep, {n//1_000_000}M x {dim} (bf16, "
+          f"{jax.devices()[0].device_kind})\n")
     print("| rank | oversample | recall@10 | p50 ms | QPS b=128 |")
     print("|---|---|---|---|---|")
     for rank in args.ranks:

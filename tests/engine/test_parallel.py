@@ -40,9 +40,8 @@ def test_sharded_flat_matches_single_device(mesh, rng):
 
 
 def test_sharded_flat_approx_select_matches_exact(mesh, rng):
-    """Multi-chip twin of FVDB_FLAT_SELECT=approx: per-shard approx pool +
-    local exact f32 refine must agree with the exact sharded search (the
-    CPU backend's approx_min_k fallback is exact, so agreement is total)."""
+    """Multi-chip twin of FVDB_FLAT_SELECT=approx: per-shard wide pool +
+    local exact f32 refine must agree with the exact sharded search."""
     n, d, b, k = 256, 16, 4, 10
     x = rng.standard_normal((n, d)).astype(np.float32)
     q = rng.standard_normal((b, d)).astype(np.float32)
@@ -389,7 +388,7 @@ def test_sharded_manifest_forward_version_rejected(mesh):
 def test_sharded_flat_scaling_100k(rng):
     """QPS/latency vs n_devices at 100K rows on the virtual CPU mesh.
 
-    CPU simulation can't show real ICI speedups (all 'devices' share one
+    CPU simulation can't show real interconnect speedups (all 'devices' share one
     host), so the assertion is correctness at every mesh size; the timing
     curve is printed for the collective-overhead shape (run with -s).
     """
@@ -565,3 +564,15 @@ def test_sharded_assign_clusters_pads_uneven_rows(rng):
     assert got.shape == (n,)
     want = np.argmin(((x[:, None, :] - cents[None]) ** 2).sum(-1), axis=1)
     np.testing.assert_array_equal(got, want)
+
+
+def test_make_mesh_raises_when_devices_are_too_few():
+    """No silent fallback: asking the backend for more devices than it has
+    is an error (virtual CPU meshes come from cpu_mesh explicitly)."""
+    from fabstir_vectordb_tpu.parallel import make_mesh
+
+    have = len(jax.devices())
+    with pytest.raises(ValueError):
+        make_mesh(have + 1)
+    assert make_mesh(have).devices.size == have
+    assert make_mesh().devices.size == have

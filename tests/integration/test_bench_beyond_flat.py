@@ -1,7 +1,7 @@
 """Miniature run of bench.bench_10m — the beyond-flat-residency artifact
 path (direct device-assigned IVF state + reduced-rank serving + streamed
 exact oracle). Guards the code that produces the headline scale metric
-from rotting between (slow, TPU-bound) bench runs."""
+from rotting between (slow, accelerator-bound) bench runs."""
 import os
 import sys
 from pathlib import Path

@@ -1,7 +1,7 @@
 """Serving-regime ladder integration: one index walked through all three
 query plans (flat-exact -> reduced-rank -> pruned -> back to flat), checking
 result consistency AND that each regime releases the others' device state
-(their sum OOM'd a 5M corpus on a 16 GB chip — see index/fused.py)."""
+(their sum would not fit next to each other at scale — see index/fused.py)."""
 import numpy as np
 import pytest
 
@@ -280,10 +280,8 @@ def test_reduced_rank_calibration_and_rerank_modes(monkeypatch):
 
 
 def test_flat_approx_select_matches_exact(ladder_index, monkeypatch):
-    """FVDB_FLAT_SELECT=approx: the turbo flat path (approx_min_k wide pool
-    + fused exact f32 refine) must agree with the exact kernel — on the CPU
-    backend approx_min_k's fallback is exact, so agreement is total; the
-    measured TPU operating points live in docs/PERFORMANCE.md."""
+    """FVDB_FLAT_SELECT=approx: the turbo flat path (wide exact pool +
+    fused exact f32 refine) must agree with the exact kernel."""
     idx, vecs = ladder_index
     q = vecs[::37] + 0.002
     k = 8

@@ -139,21 +139,22 @@ def test_pq_roundtrip_and_adc(rng):
     np.testing.assert_allclose(adc, exact_to_decoded, rtol=1e-3, atol=1e-2)
 
 
-def test_masked_approx_topk_respects_mask(rng):
-    from fabstir_vectordb_tpu.ops.topk import masked_approx_topk
+@pytest.mark.parametrize("k", [8, 200, 256])
+def test_masked_topk_pool_respects_mask(rng, k):
+    """Candidate pools (link ef=200, stage-1 and turbo widths) are exact
+    selections over the unmasked rows, with -1 / inf past the live ones."""
+    from fabstir_vectordb_tpu.ops.topk import masked_topk
 
-    d = jnp.asarray(rng.standard_normal((4, 512)).astype(np.float32) ** 2)
+    d = rng.standard_normal((4, 512)).astype(np.float32) ** 2
     mask = np.ones(512, bool)
     mask[:256] = False
-    vals, idx = masked_approx_topk(d, jnp.asarray(mask), 8)
-    idx = np.asarray(idx)
-    assert (idx >= 256).all()
-    # high recall vs exact on the masked region
-    want = np.argsort(np.where(mask, np.asarray(d), np.inf), axis=1)[:, :8]
-    hit = np.mean([
-        len(set(idx[i]) & set(want[i])) / 8 for i in range(4)
-    ])
-    assert hit >= 0.75
+    vals, idx = masked_topk(jnp.asarray(d), jnp.asarray(mask), k)
+    vals, idx = np.asarray(vals), np.asarray(idx)
+    live = min(k, 256)
+    assert (idx[:, :live] >= 256).all() and (idx[:, live:] == -1).all()
+    assert np.isinf(vals[:, live:]).all()
+    want = np.sort(np.where(mask, d, np.inf), axis=1)[:, :live]
+    np.testing.assert_array_equal(vals[:, :live], want)
 
 
 def test_grow_rows_preserves_prefix(rng):
@@ -185,6 +186,48 @@ def test_effective_flat_threshold_dtype_aware(monkeypatch):
     assert limits.effective_flat_threshold() == 2 * base
     monkeypatch.setenv("FVDB_FLAT_THRESHOLD", "12345")
     assert limits.effective_flat_threshold("bfloat16") == base  # env pins
+
+
+def test_hbm_budget_from_host_memory_on_cpu(monkeypatch):
+    """The CPU backend reports no memory stats: the budget is the share of
+    host memory; the env override wins over either source."""
+    import os
+
+    from fabstir_vectordb_tpu.utils import limits
+
+    monkeypatch.delenv("FVDB_HBM_BUDGET_GB", raising=False)
+    host = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    assert jax.devices()[0].memory_stats() is None
+    assert limits.hbm_budget_bytes() == int(host * limits.HBM_BUDGET_FRACTION)
+    assert limits.HBM_BUDGET_FRACTION == 0.75
+    monkeypatch.setenv("FVDB_HBM_BUDGET_GB", "1.5")
+    assert limits.hbm_budget_bytes() == int(1.5 * (1 << 30))
+
+
+def test_hbm_budget_refuses_unknown_device(monkeypatch):
+    """A non-CPU device without memory stats is an error, not a guess."""
+    from fabstir_vectordb_tpu.utils import limits
+
+    class Dev:
+        platform = "gpu"
+        device_kind = "mystery"
+
+        def memory_stats(self):
+            return None
+
+    monkeypatch.delenv("FVDB_HBM_BUDGET_GB", raising=False)
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev()])
+    with pytest.raises(RuntimeError):
+        limits.hbm_budget_bytes()
+
+
+@pytest.mark.gpu
+def test_hbm_budget_from_device_limit_on_gpu(gpu, monkeypatch):
+    from fabstir_vectordb_tpu.utils import limits
+
+    monkeypatch.delenv("FVDB_HBM_BUDGET_GB", raising=False)
+    want = int(gpu.memory_stats()["bytes_limit"] * limits.HBM_BUDGET_FRACTION)
+    assert limits.hbm_budget_bytes() == want
 
 
 def test_serving_knob_parsing(monkeypatch):

@@ -6,7 +6,7 @@ built from it (fused._proj_state_locked device-source path) serves the
 same corpus the host store holds, with zero bulk host->device transfer.
 On the CPU test backend host and "device" generation coincide, so every
 comparison here is exact; the cross-backend bf16 skew budget (0.23% of
-elements by one ULP, measured TPU-vs-CPU) is enforced by spot_check's
+elements by one ULP, accelerator vs CPU) is enforced by spot_check's
 tolerance logic, which is also exercised here.
 """
 import numpy as np
